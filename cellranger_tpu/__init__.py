@@ -1,53 +1,12 @@
-"""cellranger_tpu: a TPU-native single-cell sequencing engine.
+"""cellranger_tpu: a single-cell sequencing engine on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of 10x Genomics
+A from-scratch JAX/XLA re-design of the capabilities of 10x Genomics
 Cell Ranger (reference: Schaudge/cellranger): barcode correction, splice-aware
 read alignment, UMI deduplication, feature x barcode count matrices, cell
 calling, secondary analysis, and V(D)J assembly -- with the hot paths running
-as fixed-shape batched device computations under jit/pjit, and multi-chip
+as fixed-shape batched device computations under jit, and multi-device
 scaling expressed through jax.sharding meshes and XLA collectives instead of
 the reference's Martian process pipeline.
 """
 
 __version__ = "0.1.0"
-
-import os as _os
-
-
-def _enable_compile_cache() -> None:
-    """Persistent XLA compile cache, opt-in via CRTPU_COMPILE_CACHE=<dir>.
-
-    On remote-compile TPU deployments every compile is a multi-second round
-    trip, so caching compiled programs across processes is the difference
-    between a 30s and a 150s pipeline start.  Opt-in rather than default:
-    CPU AOT cache entries can embed compile-machine features the host lacks
-    (SIGILL risk on reload), and some TPU plugins use per-session compile
-    keys where a persistent cache never hits anyway."""
-    cache = _os.environ.get("CRTPU_COMPILE_CACHE")
-    if not cache:
-        return
-    try:
-        import jax
-        _os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # never let cache config break the import
-
-
-def _default_aot_cache() -> None:
-    """AOT executable cache (aot.py) default location.
-
-    Unlike the XLA persistent cache above, the AOT path serializes whole
-    compiled executables keyed on lowered-HLO hashes, which also works on
-    remote-compile TPU backends whose compile keys are per-session.  It is
-    platform-gated inside aot.cache_dir() (TPU/GPU only; CPU AOT entries
-    embed compile-machine ISA features), so defaulting the directory on is
-    safe everywhere."""
-    if "CRTPU_AOT_CACHE" not in _os.environ:
-        _os.environ["CRTPU_AOT_CACHE"] = _os.path.join(
-            _os.path.expanduser("~"), ".cache", "cellranger_tpu", "aot")
-
-
-_enable_compile_cache()
-_default_aot_cache()

@@ -1,11 +1,12 @@
 """Device seed-and-extend aligner (batched, fixed-shape, jit-compiled).
 
-TPU-native replacement for the reference's in-process STAR alignment
+Device replacement for the reference's in-process STAR alignment
 (cr_lib/src/stages/align_and_count.rs:588-592, cr_lib/src/aligner.rs:396-422):
 instead of one C++ suffix-array walk per read on a CPU thread, we align a
-whole fixed-shape batch at once. The design is driven by the measured HBM
-cost model (tools/row_bench.py): a random gather costs ~30-50ns per ROW
-fetched regardless of row width, so every stage minimizes row count:
+whole fixed-shape batch at once. Random gathers from device memory are the
+expensive operation, and a gather's cost follows the rows (memory
+transactions) it touches more than their width, so every stage minimizes
+row count:
 
   1. rolling 2-bit k-mer extraction at static seed offsets; each seed is
      CANONICALIZED (min of kmer and revcomp) so ONE bucket-row lookup
@@ -23,7 +24,7 @@ fetched regardless of row width, so every stage minimizes row count:
      splice handling comes free from the index's junction contigs;
   5. canonicalized tie counting -> STAR MAPQ semantics
      (unique=255, 2 loci=3, 3-4=1, >4=0; rna_read.rs:32 HIGH_CONF_MAPQ);
-  6. banded Smith-Waterman rescue (Pallas kernel) runs only on the
+  6. banded Smith-Waterman rescue (align/sw.py) runs only on the
      COMPACTED subset of reads whose ungapped score is below the map
      threshold (indel suspects), not the whole batch.
 
@@ -44,15 +45,16 @@ from jax.tree_util import register_dataclass
 from ..constants import DEFAULT_ALIGN_SCORE_MIN
 from ..ops.bucket_table import BucketTable
 from ..ops.encode import revcomp_packed
+from ..ops.scan import cummax
 from .index import GenomeIndex, MINIMIZER_HASH
 
 # Tunables (static); see align_and_count.rs:63 for the score floor.
 SEED_STRIDE = 10       # extract a seed every N bases of the read
 MAX_HITS_PER_SEED = 8  # bucket-row width = max hits surfaced per seed
 MAX_CANDIDATES = 3     # diagonals taken to extension, pooled across strands
-                       # (r4 sweep: D=4 -> 3 saved ~3ms/step with the
-                       # truth probe perfect; saturation clips n_best to
-                       # the STAR >4 bucket so MAPQ boundaries survive)
+                       # (the human-scale truth probe stays perfect at 3;
+                       # saturation clips n_best to the STAR >4 bucket so
+                       # MAPQ boundaries survive)
 RESCUE_CAP_FRAC = 4    # SW rescue capacity = B // RESCUE_CAP_FRAC
 RESCUE_MARGIN = 4      # rescue when ungapped score < valid_len - margin
 
@@ -65,12 +67,11 @@ SJ_MIN_SEG = 12        # min per-side anchor score for a split alignment
 SJ_MARGIN = 4          # spliced must beat the best unspliced by this
 SJ_NONCANON_PEN = 8    # penalty when no GT..AG / CT..AC motif is found
 
-# overlapped text rows cost ~0.9B/base of HBM next to the kmer table;
-# above this text size, windows fall back to the 2-row fetch.  The limit
-# covers GRCh38 + junction contigs: at 3.1GB the ov table is 2.6GB and
-# total HBM ~12.9GB (fits 16GB v5e), and the step drops 93.3 -> 68.9ms
-# (HUMAN3G.json overlap_rows).  Sites with less HBM headroom can lower
-# it via params.
+# overlapped text rows cost ~0.9B/base of device memory next to the kmer
+# table and halve the window row gathers; above this text size, windows
+# fall back to the 2-row fetch.  The limit covers GRCh38 + junction
+# contigs (a 2.6GB ov table in a ~13GB index).  Sites with less device
+# memory can lower it via params.
 OVERLAP_ROWS_MAX_TEXT = 3_400_000_000
 
 
@@ -80,16 +81,16 @@ class DeviceIndex:
     """GenomeIndex uploaded to device (replicated; one copy per chip).
 
     Registered as a jax pytree so the big arrays pass through jit as
-    ARGUMENTS, not closure constants — captured constants get serialized
-    into the compile payload (minutes of compile, and hard request-size
-    limits on remote-compile setups)."""
+    ARGUMENTS, not closure constants: captured constants are embedded in
+    the compiled program, which makes compiles slow and the compile cache
+    key depend on the index contents."""
 
     text_rows: jnp.ndarray     # uint32 [NR+2, 32]: code words | valid words
     kmer_table: BucketTable    # canonical kmer -> packed pos/strand rows
     chrom_starts: jnp.ndarray  # int64 [C+1]
     sj_rows: jnp.ndarray       # uint32 [J, 2]: (donor_abs, acceptor_abs)
     # overlapped 128-base-stride rows (one gather serves any <=96-base
-    # window); None for texts too big to spend the extra ~0.9B/base HBM
+    # window); None for texts too big to spend the extra ~0.9B/base
     text_rows_ov: jnp.ndarray | None = None
     genome_len: int = field(metadata=dict(static=True), default=0)
     text_len: int = field(metadata=dict(static=True), default=0)
@@ -370,10 +371,9 @@ def make_aligner(idx: DeviceIndex, read_len: int,
         if MINI:
             # winnowed seed picking: identical window-min rule to the
             # genome build, compacted to the earliest S picks via a
-            # ONE-HOT MATMUL on the MXU — top_k + take_along_axis on the
-            # minormost dim cost 7.3ms/32k-read step vs 0.6ms for the
-            # einsum (tools/seedpick_bench.py); values split into 16-bit
-            # halves stay exact under HIGHEST-precision f32 accumulation
+            # ONE-HOT MATMUL (one nonzero per output, so the einsum is an
+            # exact select); values split into 16-bit halves stay exact
+            # under HIGHEST-precision f32 accumulation
             n = kms.shape[1]
             kmr_all = revcomp_packed(kms, k)
             flip_all = kmr_all < kms
@@ -429,10 +429,9 @@ def make_aligner(idx: DeviceIndex, read_len: int,
 
         # ---- diagonal voting via pairwise equality counting ----
         # O(M^2) fused elementwise reductions instead of a [B, M]
-        # comparator sort: the sort's O(M log^2 M) serialized passes were
-        # ~16% of the human-scale step (tools/step_ablate.py), while the
-        # equality count + first-occurrence dedup vectorize perfectly and
-        # XLA fuses them into the reduction (no [B, M, M] materializes)
+        # comparator sort (O(M log^2 M) serialized passes): the equality
+        # count + first-occurrence dedup vectorize perfectly and XLA
+        # fuses them into the reduction (no [B, M, M] materializes)
         M = S * H
         flat = key.reshape(B, M)
         kvalid = flat != BIGK
@@ -475,10 +474,9 @@ def make_aligner(idx: DeviceIndex, read_len: int,
             net = (2 * jnp.sum(m5, -1, dtype=jnp.int32)
                    - jnp.sum(act5, -1, dtype=jnp.int32))
             best_off = jnp.argmax(net, axis=2).astype(jnp.int32)  # [B, D]
-            # N_OFF-way select of static slices, NOT take_along_axis: a
-            # dynamic gather along the minormost (lane) dim of [B, D, L]
-            # lowers catastrophically on TPU (measured 270ms of the 307ms
-            # extension stage at GRCh38 scale, tools/human3g_ablate2.py)
+            # N_OFF-way select of static slices instead of a dynamic
+            # gather along the minormost dim of [B, D, L]: elementwise
+            # selects fuse into the scoring chain
             bo = jnp.broadcast_to(best_off[:, :, None], (B, D, L))
             win = jax.lax.select_n(bo, *[win[..., o:o + L]
                                          for o in range(N_OFF)])
@@ -490,7 +488,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
         contrib = jnp.where(active, jnp.where(m, 1, -1), 0).astype(jnp.int32)
         cs = jnp.cumsum(contrib, axis=2)
         pref = jnp.pad(cs, ((0, 0), (0, 0), (1, 0)))[:, :, :-1]
-        run_min = jax.lax.cummax(-pref, axis=2)   # = -min prefix
+        run_min = cummax(-pref, axis=2)   # = -min prefix
         best_at = cs + run_min                    # [B, D, L] best sum ending at i
         score = jnp.max(best_at, axis=2)          # [B, D]
         end_i = jnp.argmax(best_at, axis=2)       # inclusive end index
@@ -595,7 +593,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
             cand_ok_j = cand_ok[sjc]
             best_score_j = best_score[sjc]
 
-            rcm = jax.lax.cummax(cs_j, axis=2, reverse=True)
+            rcm = cummax(cs_j, axis=2, reverse=True)
             best_start_at = rcm - pref_j                 # [C, D, L]
             bs_shift = jnp.concatenate(
                 [best_start_at[:, :, 1:],
@@ -707,7 +705,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
             # gapped rescue ONLY for reads whose ungapped score missed the
             # floor but that do have a candidate locus (indel suspects) —
             # compacted to a fixed capacity, scattered back
-            from .sw import BAND, banded_sw
+            from .sw import BAND, rescue_sw
             C = max(B // RESCUE_CAP_FRAC, 1)
             # indel suspects: the ungapped score can't explain the read
             # (mismatch-only reads score ~valid_len - 2*errors and their
@@ -725,7 +723,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
                 jnp.minimum(sel, B - 1)]
             fetch_sw = make_window_fetch(idx, L + BAND)
             win_s, wok_s = fetch_sw(idx, win_start)
-            sw_score_c, _, _ = banded_sw(codes_b, mask_b, win_s, wok_s)
+            sw_score_c, _, _ = rescue_sw(codes_b, mask_b, win_s, wok_s)
             sw_score = jnp.zeros((B,), jnp.int32).at[sel].set(
                 sw_score_c, mode="drop")
             eff_score = jnp.maximum(best_score, sw_score)

@@ -15,8 +15,8 @@ Semantics matched:
     confidently mapped to the transcriptome when MAPQ==255 and exactly one
     distinct gene (read.rs:129).
 
-Device formulation, driven by the row-gather cost model (tools/row_bench.py:
-~40ns per random row regardless of width): no binary searches — a
+Device formulation, driven by the row-gather cost (a random row fetch
+costs about the same whatever its width): no binary searches — a
 precomputed 128-base GRID maps a read's end coordinate straight to its
 window position in the exon table (1 small gather), and the window itself
 is TWO 128-byte row fetches of 8 packed exons each (start/end/meta columnar

@@ -1,8 +1,8 @@
-"""Genome index for the TPU seed-and-extend aligner.
+"""Genome index for the device seed-and-extend aligner.
 
 Replaces the reference's in-process STAR suffix-array aligner
 (lib/rust/cr_lib/src/stages/align_and_count.rs:588 StarReference,
-aligner.rs:396 align_read) with a TPU-friendly design:
+aligner.rs:396 align_read) with a fixed-shape, gather-friendly design:
 
   * The *text* is the 2-bit-coded concatenation of all chromosomes plus one
     mini-contig per annotated splice junction (donor flank + acceptor flank,
@@ -85,12 +85,12 @@ class GenomeIndex:
     source_path: str | None = None
 
     def packed_rows(self):
-        """Genome text as 128-byte HBM rows: [NR+2, 32] uint32, columns
+        """Genome text as 128-byte rows: [NR+2, 32] uint32, columns
         0..15 = code words (16 MSB-first 2-bit codes each), 16..31 = the
         matching 16-bit validity masks. One row covers 256 bases; any
         <=128-base window lives in rows (r, r+1), so a candidate window
-        costs exactly two row gathers (row fetches are the unit of HBM cost
-        regardless of width — tools/row_bench.py). Two pad rows keep r+1 in
+        costs exactly two row gathers (row fetches, not bytes, are the
+        unit of gather cost). Two pad rows keep r+1 in
         bounds at the text tail."""
         if not hasattr(self, "_rows"):
             G = len(self.text)
@@ -113,9 +113,9 @@ class GenomeIndex:
         """[R, 2*rw] u32 OVERLAPPED text rows: stride 128 bases, width
         rw*16 bases — any window of <= rw*16-128 bases starting anywhere
         lives entirely in row pos>>7, so a candidate window costs ONE row
-        gather instead of two (row fetches are the unit of HBM cost;
+        gather instead of two (row fetches are the unit of gather cost;
         extension was ~8 row gathers/read at D=4).  Costs ~0.9 bytes/base
-        of extra HBM, so DeviceIndex builds it only for texts that leave
+        of extra device memory, so DeviceIndex builds it only for texts that leave
         room next to the kmer table."""
         rows = self.packed_rows()
         tw = np.ascontiguousarray(rows[:, :16]).reshape(-1)
@@ -312,7 +312,7 @@ def _canonical_kmers_block(text, valid, k):
     of `text`. Canonical = min(kmer, revcomp): ONE seed lookup then serves
     both read strands (the hit's strand = stored bit XOR the query's
     flipped bit), halving the per-read row-gather count — the dominant
-    cost on TPU (tools/row_bench.py)."""
+    cost of the seed stage."""
     G = len(text)
     n = G - k + 1
     km = np.zeros(n, np.uint64)

@@ -5,8 +5,9 @@ batch_correction.py — the fastMNN-style approach of Haghverdi et al. 2018).
 Batches are aligned in PCA space: for each non-reference batch, mutual
 nearest neighbor pairs against the merged reference define per-pair
 correction vectors; each cell applies a Gaussian-kernel-weighted average of
-nearby pair vectors. The O(N^2) neighbor searches run as TPU matmul
-distance blocks (analysis.graphclust.knn_graph)."""
+nearby pair vectors. The O(N^2) neighbor searches run as device matmul
+distance blocks at HIGHEST precision (the MNN pairs are discrete); the
+kernel-weighted average is host float64."""
 
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ def _cross_knn(a: np.ndarray, b: np.ndarray, k: int):
 
     a_j = jnp.asarray(a, jnp.float32)
     b_j = jnp.asarray(b, jnp.float32)
-    d2 = (jnp.sum(a_j ** 2, 1)[:, None] - 2 * a_j @ b_j.T
+    ab = jnp.matmul(a_j, b_j.T, precision=jax.lax.Precision.HIGHEST)
+    d2 = (jnp.sum(a_j ** 2, 1)[:, None] - 2 * ab
           + jnp.sum(b_j ** 2, 1)[None, :])
     _, idx = jax.lax.top_k(-d2, min(k, b.shape[0]))
     return np.asarray(idx)

@@ -4,7 +4,7 @@ Host-side numpy with fixed seeds — the reference pins exact reproducibility
 of these statistics to seeded CPU RNG (np.random.RandomState(0) in
 cell_calling_helpers.py:900, np.random.seed(0) in stats.py:113), so this
 subsystem deliberately stays off-device; the heavy upstream reductions
-(counts per barcode) arrive from the TPU pipeline.
+(counts per barcode) arrive from the device pipeline.
 
 Spec sources:
   * ordmag: cell_calling_helpers.py:863-960 (find_within_ordmag,

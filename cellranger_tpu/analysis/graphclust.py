@@ -1,11 +1,12 @@
-"""Graph clustering: TPU kNN graph + host Louvain (RUN_GRAPH_CLUSTERING_NG
+"""Graph clustering: device kNN graph + host Louvain (RUN_GRAPH_CLUSTERING_NG
 analog, lib/rust/cr_ana/src/stages/graph_clustering.rs:84 — kNN over PCA
 space, then Louvain community detection; the reference's legacy path shells
 out to a C++ louvain binary, analysis/graphclust.py:34,114).
 
-The O(N^2) neighbor search runs as MXU matmul distance blocks; Louvain's
-sequential modularity sweeps are host python over the sparse kNN graph
-(communities are data-dependent control flow — not a TPU shape)."""
+The O(N^2) neighbor search runs as matmul distance blocks at HIGHEST
+precision (the kNN edges decide the Louvain labels); Louvain's sequential
+modularity sweeps are host python over the sparse kNN graph (communities
+are data-dependent control flow, not a fixed-shape device computation)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import numpy as np
 def knn_graph(x: jnp.ndarray, k: int):
     """x [n, d] -> (indices int32 [n, k], dists [n, k]) excluding self."""
     d2 = (jnp.sum(x ** 2, axis=1, keepdims=True)
-          - 2 * x @ x.T + jnp.sum(x ** 2, axis=1)[None, :])
+          - 2 * jnp.matmul(x, x.T, precision=jax.lax.Precision.HIGHEST)
+          + jnp.sum(x ** 2, axis=1)[None, :])
     d2 = d2.at[jnp.arange(x.shape[0]), jnp.arange(x.shape[0])].set(jnp.inf)
     neg, idx = jax.lax.top_k(-d2, k)
     return idx.astype(jnp.int32), -neg

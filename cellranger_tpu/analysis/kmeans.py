@@ -1,7 +1,8 @@
-"""K-means on TPU (RUN_KMEANS analog, analysis/kmeans.py).
+"""K-means (RUN_KMEANS analog, analysis/kmeans.py).
 
-Lloyd iterations as dense matmuls: distances via |x|^2 - 2 x.c + |c|^2 on
-the MXU, argmin per cell, segment-sum centroid update. kmeans++-style
+Lloyd iterations as dense matmuls: distances via |x|^2 - 2 x.c + |c|^2
+(HIGHEST precision: the argmin labels are discrete), argmin per cell,
+segment-sum centroid update. kmeans++-style
 seeding with a fixed seed (the reference seeds sklearn KMeans with
 random_state=0).
 """
@@ -13,6 +14,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
 
 
 @functools.partial(jax.jit, static_argnames=("k", "n_iter"))
@@ -40,10 +42,14 @@ def kmeans_fit(x: jnp.ndarray, k: int, n_iter: int = 100, seed: int = 0):
     (centers, _, _), _ = jax.lax.scan(
         seed_body, (centers0, 1, key), None, length=k - 1)
 
+    def sq_dists(centers):
+        xc = jnp.matmul(x, centers.T, precision=jax.lax.Precision.HIGHEST)
+        return (jnp.sum(x ** 2, axis=1, keepdims=True) - 2 * xc
+                + jnp.sum(centers ** 2, axis=1)[None, :])
+
     def lloyd(_, carry):
         centers, _ = carry
-        d2 = (jnp.sum(x ** 2, axis=1, keepdims=True)
-              - 2 * x @ centers.T + jnp.sum(centers ** 2, axis=1)[None, :])
+        d2 = sq_dists(centers)
         labels = jnp.argmin(d2, axis=1).astype(jnp.int32)
         sums = jax.ops.segment_sum(x, labels, num_segments=k)
         counts = jax.ops.segment_sum(jnp.ones(n, x.dtype), labels, num_segments=k)
@@ -53,8 +59,7 @@ def kmeans_fit(x: jnp.ndarray, k: int, n_iter: int = 100, seed: int = 0):
 
     centers, labels = jax.lax.fori_loop(
         0, n_iter, lloyd, (centers, jnp.zeros(n, jnp.int32)))
-    d2 = (jnp.sum(x ** 2, axis=1, keepdims=True)
-          - 2 * x @ centers.T + jnp.sum(centers ** 2, axis=1)[None, :])
+    d2 = sq_dists(centers)
     inertia = jnp.sum(jnp.min(d2, axis=1))
     return labels, centers, inertia
 

@@ -1,11 +1,12 @@
-"""PCA on TPU: randomized subspace-iteration SVD (RUN_PCA_NG analog,
+"""PCA: randomized subspace-iteration SVD (RUN_PCA_NG analog,
 lib/rust/cr_ana/src/stages/pca2.rs via scan-rs; python twin analysis/pca.py).
 
-The reference runs IRLBA on CPU; the TPU-native form is randomized SVD —
-three dense matmuls per power iteration, all on the MXU. For cells x
-features matrices at single-cell scale (<=1e5 x 3e4) the dense form fits in
-HBM in f32; inputs arrive already log-normalized/standardized
-(analysis.preprocess).
+The reference runs IRLBA on CPU; the device form is randomized SVD — three
+dense matmuls per power iteration. For cells x features matrices at
+single-cell scale (<=1e5 x 3e4) the dense form fits in device memory in
+f32; inputs arrive already log-normalized/standardized
+(analysis.preprocess). Matmuls run at HIGHEST precision: the projection
+feeds k-means and graph clustering, whose labels are discrete.
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ def randomized_svd(x: jnp.ndarray, n_components: int = N_COMPONENTS_DEFAULT,
     k = min(n_components + 10, min(n, f))  # oversampling
     key = jax.random.PRNGKey(seed)
     q = jax.random.normal(key, (f, k), dtype=jnp.float32)
-    y = x @ q
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    y = mm(x, q)
     for _ in range(n_iter):
         q, _ = jnp.linalg.qr(y)
-        y = x @ (x.T @ q)
+        y = mm(x, mm(x.T, q))
     q, _ = jnp.linalg.qr(y)
-    b = q.T @ x                       # [k, f]
+    b = mm(q.T, x)                    # [k, f]
     ub, s, vt = jnp.linalg.svd(b, full_matrices=False)
-    u = q @ ub
+    u = mm(q, ub)
     kk = n_components
     return u[:, :kk], s[:kk], vt[:kk]
 

@@ -19,7 +19,7 @@ from .kmeans import run_kmeans
 from .pca import N_COMPONENTS_DEFAULT, run_pca
 from .preprocess import log_normalize_dense, select_features
 from .tsne import run_tsne
-from .umap_tpu import run_umap
+from .umap import run_umap
 
 KMEANS_RANGE = range(2, 11)  # reference: K=2..10
 

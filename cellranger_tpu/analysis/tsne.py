@@ -1,10 +1,11 @@
-"""t-SNE on TPU (RUN_TSNE_NG analog, cr_ana/stages/tsne.rs via bhtsne).
+"""t-SNE (RUN_TSNE_NG analog, cr_ana/stages/tsne.rs via bhtsne).
 
 The reference uses Barnes-Hut t-SNE (O(N log N), pointer quadtrees — hostile
-to SIMD). The TPU-native form is exact t-SNE: the [N, N] affinity and
-repulsion matrices are dense MXU work, which at single-cell scale
-(N <= ~50k on one chip in f32) is faster end-to-end than BH on CPU.
-Perplexity calibration is a vectorized binary search on beta.
+to SIMD). The device form is exact t-SNE: the [N, N] affinity and repulsion
+matrices are dense matmul work, bounded by analysis/run.py's cell cap.
+Matmuls run at HIGHEST precision, so the embedding does not depend on the
+backend's default float32 matmul mode. Perplexity calibration is a
+vectorized binary search on beta.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ TSNE_THETA = 0.5
 TSNE_MAX_ITER = 1000
 TSNE_STOP_LYING_ITER = 250
 TSNE_MOM_SWITCH_ITER = 250
+_HP = jax.lax.Precision.HIGHEST
 
 
 def _pairwise_sq_dists(x):
     s = jnp.sum(x ** 2, axis=1)
-    return s[:, None] - 2 * x @ x.T + s[None, :]
+    return (s[:, None] - 2 * jnp.matmul(x, x.T, precision=_HP)
+            + s[None, :])
 
 
 @functools.partial(jax.jit, static_argnames=("perplexity",))
@@ -76,7 +79,8 @@ def _tsne_optimize(p, y0, n_iter: int = TSNE_MAX_ITER):
         z = jnp.maximum(q_num.sum(), 1e-12)
         q = jnp.maximum(q_num / z, 1e-12)
         mult = (pp - q) * q_num
-        return 4.0 * ((jnp.diag(mult.sum(axis=1)) - mult) @ y)
+        return 4.0 * jnp.matmul(jnp.diag(mult.sum(axis=1)) - mult, y,
+                                precision=_HP)
 
     def body(i, carry):
         y, vel, gains = carry

@@ -1,10 +1,10 @@
-"""UMAP on TPU (RUN_UMAP analog, cr_ana/stages/umap.rs via umap-rs).
+"""UMAP (RUN_UMAP analog, cr_ana/stages/umap.rs via umap-rs).
 
-TPU-native formulation: fuzzy simplicial set from the exact kNN graph
-(TPU distance blocks), then layout optimization by minimizing the UMAP
+Device formulation: fuzzy simplicial set from the exact kNN graph (matmul
+distance blocks), then layout optimization by minimizing the UMAP
 cross-entropy with DENSE attraction/repulsion — O(N^2) matmul-shaped work
-instead of the reference's per-edge SGD with negative sampling, which is
-irregular scatter work a systolic array hates. Defaults mirror the
+(HIGHEST precision) instead of the reference's per-edge SGD with negative
+sampling, which is irregular scatter work. Defaults mirror the
 reference (n_neighbors=30, min_dist=0.3, 2 components;
 analysis/constants.py:29-37).
 """
@@ -74,7 +74,8 @@ def _optimize(p, y0, a, b, n_epochs: int = UMAP_EPOCHS):
         rep_coef = (2.0 * b) / (d2 * (1.0 + pow_term))
         coef = p * attr_coef + (1.0 - p) * rep_coef * 0.005
         coef = jnp.where(eye, 0.0, coef)
-        g = jnp.einsum("ij,ijk->ik", coef, -diff)
+        g = jnp.einsum("ij,ijk->ik", coef, -diff,
+                       precision=jax.lax.Precision.HIGHEST)
         y = y - lr * jnp.clip(g, -4.0, 4.0)
         return y - y.mean(axis=0)
 

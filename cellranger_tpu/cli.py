@@ -235,9 +235,13 @@ def _cmd_mkgtf(args):
     print(f"wrote {n} feature rows to {args.output_gtf}")
 
 
+# commands that compile nothing, so they leave the compile cache alone
+HOST_ONLY_COMMANDS = frozenset(("mkgtf", "mkfastq"))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cellranger-tpu",
-                                description="TPU-native single-cell engine")
+                                description="single-cell engine on JAX")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("count", help="count GEX reads from FASTQs")
@@ -328,6 +332,9 @@ def main(argv=None):
     mg.set_defaults(fn=_cmd_mkgtf)
 
     args = p.parse_args(argv)
+    if args.cmd not in HOST_ONLY_COMMANDS:
+        from .compile_cache import enable_compile_cache
+        enable_compile_cache()
     args.fn(args)
 
 

@@ -1,7 +1,7 @@
 """Host-side FASTQ ingestion: parse gzip FASTQs into fixed-shape numpy
 batches with chemistry-driven barcode/UMI/cDNA extraction.
 
-TPU-first design: the device pipeline consumes *fixed-shape* batches
+Fixed-shape design: the device pipeline consumes *fixed-shape* batches
 (ReadBatch), so this module owns all ragged-to-rectangular conversion:
 reads are clipped/padded to a static length, short/empty slots masked.
 Mirrors the semantics of the reference's read model (RnaRead extraction per

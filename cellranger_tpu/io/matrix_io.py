@@ -101,13 +101,13 @@ class CountMatrix:
     def save_h5(self, path: str, chemistry_description: str = "custom",
                 library_ids=("count",), sw_version: str = "cellranger-tpu-0.1.0",
                 extra_attrs: dict | None = None):
-        import h5py
+        from .h5lite import File
 
         def strs(xs):
             return np.asarray([x if isinstance(x, bytes) else str(x).encode()
                                for x in xs], dtype="S")
 
-        with h5py.File(path, "w") as f:
+        with File(path, "w") as f:
             f.attrs["filetype"] = "matrix"
             f.attrs["version"] = 2
             f.attrs["software_version"] = sw_version
@@ -119,28 +119,25 @@ class CountMatrix:
             g = f.create_group("matrix")
             csc = self.m.tocsc()
             csc.sort_indices()
-            # gzip level 1: ~5x faster writes than the default level 4 for
-            # ~5% size — matrix writes showed up in run profiles
-            opts = dict(compression="gzip", compression_opts=1, shuffle=True)
-            g.create_dataset("data", data=csc.data.astype(np.int32), **opts)
-            g.create_dataset("indices", data=csc.indices.astype(np.int64), **opts)
-            g.create_dataset("indptr", data=csc.indptr.astype(np.int64), **opts)
+            g.create_dataset("data", data=csc.data.astype(np.int32))
+            g.create_dataset("indices", data=csc.indices.astype(np.int64))
+            g.create_dataset("indptr", data=csc.indptr.astype(np.int64))
             g.create_dataset("shape", data=np.asarray(csc.shape, np.int32))
-            g.create_dataset("barcodes", data=strs(self.barcodes), **opts)
+            g.create_dataset("barcodes", data=strs(self.barcodes))
             fg = g.create_group("features")
             fds = self.features.feature_defs
-            fg.create_dataset("id", data=strs([d.id for d in fds]), **opts)
-            fg.create_dataset("name", data=strs([d.name for d in fds]), **opts)
+            fg.create_dataset("id", data=strs([d.id for d in fds]))
+            fg.create_dataset("name", data=strs([d.name for d in fds]))
             fg.create_dataset("feature_type",
-                              data=strs([d.feature_type for d in fds]), **opts)
-            fg.create_dataset("genome", data=strs([d.genome for d in fds]), **opts)
+                              data=strs([d.feature_type for d in fds]))
+            fg.create_dataset("genome", data=strs([d.genome for d in fds]))
             fg.create_dataset("_all_tag_keys", data=strs(["genome"]))
 
     @staticmethod
     def load_h5(path: str) -> "CountMatrix":
-        import h5py
+        from .h5lite import open_h5
 
-        with h5py.File(path, "r") as f:
+        with open_h5(path) as f:
             g = f["matrix"]
             shape = tuple(g["shape"][:])
             m = sp.csc_matrix(

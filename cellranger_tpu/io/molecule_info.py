@@ -43,7 +43,7 @@ def save_molecule_info(
     umi_type: np.ndarray | None = None,
     gem_group_per_mol: np.ndarray | None = None,
 ):
-    import h5py
+    from .h5lite import File
 
     n = len(barcode_idx)
     # reference sorts molecules by (gem_group, barcode_idx) for chunking
@@ -53,27 +53,26 @@ def save_molecule_info(
         return np.asarray([x if isinstance(x, bytes) else str(x).encode()
                            for x in xs], dtype="S")
 
-    with h5py.File(path, "w") as f:
+    with File(path, "w") as f:
         f.attrs["file_version"] = FILE_VERSION
-        opts = dict(compression="gzip")
         gg = (np.asarray(gem_group_per_mol, np.uint16)
               if gem_group_per_mol is not None
               else np.full(n, gem_group, np.uint16))
-        f.create_dataset("gem_group", data=gg[order], **opts)
+        f.create_dataset("gem_group", data=gg[order])
         f.create_dataset("barcode_idx",
-                         data=barcode_idx[order].astype(np.uint64), **opts)
+                         data=barcode_idx[order].astype(np.uint64))
         f.create_dataset("feature_idx",
-                         data=feature_idx[order].astype(np.uint32), **opts)
+                         data=feature_idx[order].astype(np.uint32))
         f.create_dataset(
             "library_idx",
             data=(library_idx[order] if library_idx is not None
-                  else np.zeros(n)).astype(np.uint16), **opts)
-        f.create_dataset("umi", data=umi[order].astype(np.uint32), **opts)
-        f.create_dataset("count", data=count[order].astype(np.uint32), **opts)
+                  else np.zeros(n)).astype(np.uint16))
+        f.create_dataset("umi", data=umi[order].astype(np.uint32))
+        f.create_dataset("count", data=count[order].astype(np.uint32))
         f.create_dataset(
             "umi_type",
             data=(umi_type[order] if umi_type is not None
-                  else np.full(n, UMI_TYPE_TXOMIC)).astype(np.uint32), **opts)
+                  else np.full(n, UMI_TYPE_TXOMIC)).astype(np.uint32))
         # the reference stores RAW barcode sequences (no gem-group suffix;
         # molecule_counter.py:483 — format_barcode_seq appends "-<gg>" at
         # use time).  Normalize so reference readers (run_subsampling,
@@ -84,15 +83,15 @@ def save_molecule_info(
             return head if sep and tail.isdigit() else b
 
         f.create_dataset("barcodes", data=strs([unsuffix(b)
-                                                for b in barcodes]), **opts)
+                                                for b in barcodes]))
 
         fg = f.create_group("features")
         fds = features.feature_defs
-        fg.create_dataset("id", data=strs([d.id for d in fds]), **opts)
-        fg.create_dataset("name", data=strs([d.name for d in fds]), **opts)
+        fg.create_dataset("id", data=strs([d.id for d in fds]))
+        fg.create_dataset("name", data=strs([d.name for d in fds]))
         fg.create_dataset("feature_type",
-                          data=strs([d.feature_type for d in fds]), **opts)
-        fg.create_dataset("genome", data=strs([d.genome for d in fds]), **opts)
+                          data=strs([d.feature_type for d in fds]))
+        fg.create_dataset("genome", data=strs([d.genome for d in fds]))
         fg.create_dataset("_all_tag_keys", data=strs(["genome"]))
 
         li = library_info or [
@@ -118,9 +117,9 @@ def save_molecule_info(
 
 
 def load_molecule_info(path: str) -> dict:
-    import h5py
+    from .h5lite import open_h5
 
-    with h5py.File(path, "r") as f:
+    with open_h5(path) as f:
         out = {k: f[k][:] for k in ["gem_group", "barcode_idx", "feature_idx",
                                     "library_idx", "umi", "count", "umi_type",
                                     "barcodes"]}
@@ -141,26 +140,27 @@ def subset_molecule_info(src: str, dst: str, keep_barcodes) -> int:
     molecules whose barcode is in `keep_barcodes` (bytes, without the
     gem-group suffix or with — both accepted); pass_filter keeps only the
     sample's rows.  Returns the molecule count written."""
-    import h5py
+    from .h5lite import File, open_h5
 
     keep = set()
     for b in keep_barcodes:
         b = b if isinstance(b, bytes) else b.encode()
         keep.add(b)
         keep.add(b.rsplit(b"-", 1)[0])
-    with h5py.File(src, "r") as f, h5py.File(dst, "w") as g:
+    with open_h5(src) as f, File(dst, "w") as g:
         barcodes = f["barcodes"][:]
         bc_keep = np.asarray([b in keep or b.rsplit(b"-", 1)[0] in keep
                               for b in barcodes])
         bidx = f["barcode_idx"][:]
         row_keep = bc_keep[bidx.astype(np.int64)]
         g.attrs["file_version"] = f.attrs["file_version"]
-        opts = dict(compression="gzip")
         for k in ("gem_group", "barcode_idx", "feature_idx", "library_idx",
                   "umi", "count", "umi_type"):
-            g.create_dataset(k, data=f[k][:][row_keep], **opts)
-        g.create_dataset("barcodes", data=barcodes, **opts)
-        f.copy("features", g)
+            g.create_dataset(k, data=f[k][:][row_keep])
+        g.create_dataset("barcodes", data=barcodes)
+        fg = g.create_group("features")
+        for k in f["features"].keys():
+            fg.create_dataset(k, data=f["features"][k][()])
         g.create_dataset("library_info", data=f["library_info"][()])
         bi = g.create_group("barcode_info")
         pf = f["barcode_info/pass_filter"][:]
@@ -168,5 +168,7 @@ def subset_molecule_info(src: str, dst: str, keep_barcodes) -> int:
             pf = pf[bc_keep[pf[:, 0].astype(np.int64)]]
         bi.create_dataset("pass_filter", data=pf)
         bi.create_dataset("genomes", data=f["barcode_info/genomes"][:])
-        g.create_dataset("metrics_json", data=f["metrics_json"][()])
+        mj = f["metrics_json"][()]
+        g.create_dataset("metrics_json",
+                         data=mj.decode() if isinstance(mj, bytes) else mj)
         return int(row_keep.sum())

@@ -4,7 +4,7 @@ The reference's mkref (lib/python/cellranger/reference_builder.py:40,370)
 produces fasta/ + genes/ + STAR index; ours produces fasta/ + genes/ +
 a kmer index (.npz) + reference.json metadata. Build is host-side numpy
 (minutes for a mammalian genome vs STAR's ~8 core-hours, reference_builder
-.py:404) because the TPU aligner needs only the sorted kmer table.
+.py:404) because the device aligner needs only the sorted kmer table.
 """
 
 from __future__ import annotations

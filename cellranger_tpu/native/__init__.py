@@ -1,32 +1,48 @@
 """Native (C++) runtime components, bound via ctypes.
 
-Compiled lazily on first use with the system toolchain (g++ -O3 -lz); when
-no toolchain is available consumers fall back to pure-python paths.
+Compiled lazily on first use with the system toolchain (g++ -O3 -lz) into
+a library named after a hash of the source, so a library built from other
+source (or left in a copied tree) is never loaded; when no toolchain is
+available consumers fall back to pure-python paths, with a warning.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
 import subprocess
 import threading
 
 import numpy as np
 
+log = logging.getLogger(__name__)
+
 _HERE = os.path.dirname(__file__)
-_LIB_PATH = os.path.join(_HERE, "libfastq_reader.so")
+_SRC = os.path.join(_HERE, "fastq_reader.cpp")
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
 
 
-def _build() -> bool:
-    src = os.path.join(_HERE, "fastq_reader.cpp")
-    cmd = ["g++", "-O3", "-shared", "-fPIC", src, "-o", _LIB_PATH, "-lz"]
+def lib_path() -> str:
+    """Path of the library built from the current source."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, f"libfastq_reader.{digest}.so")
+
+
+def _build(path: str) -> bool:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, path)
         return True
-    except Exception:
+    except Exception as e:
+        log.warning("native FASTQ reader build failed (%s); using the "
+                    "pure-python reader", e)
         return False
 
 
@@ -38,15 +54,15 @@ def get_lib():
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_LIB_PATH) or (
-                os.path.getmtime(_LIB_PATH)
-                < os.path.getmtime(os.path.join(_HERE, "fastq_reader.cpp"))):
-            if not _build():
-                _build_failed = True
-                return None
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            _build_failed = True
+            return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            log.warning("native FASTQ reader failed to load (%s); using the "
+                        "pure-python reader", e)
             _build_failed = True
             return None
         lib.fq_open.restype = ctypes.c_void_p

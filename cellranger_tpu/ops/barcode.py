@@ -1,9 +1,9 @@
 """Device barcode ops: whitelist membership + posterior Hamming-1 correction.
 
-TPU-native formulation of the reference's barcode machinery:
+Batched device formulation of the reference's barcode machinery:
   * membership (barcode/src/whitelist.rs:494 check_and_update) becomes ONE
     bucket-row gather (ops.bucket_table) of the packed uint32 barcode
-    against the whitelist resident in HBM, fully batched;
+    against the whitelist resident in device memory, fully batched;
   * correction (barcode/src/corrector.rs:111-164, the `Posterior` strategy)
     becomes a dense [B, L, 3] candidate tensor: every 1-Hamming mutant is
     bc ^ (d << shift) for d in {1,2,3} in 2-bit code space, scored by
@@ -13,7 +13,7 @@ TPU-native formulation of the reference's barcode machinery:
     max((likelihood, bc)) tuple ordering (corrector.rs:144-148).
     The whitelist's observed-count prior is stored IN the table row
     (BucketTable.with_counts), so each of the 48 candidate probes costs
-    exactly one row gather — the unit of HBM cost (tools/row_bench.py).
+    exactly one row gather — the unit of gather cost.
     Callers compact the batch to invalid-barcode reads first
     (pipeline/count.py), so the 48-probe cost is paid only where needed.
 

@@ -1,9 +1,9 @@
 """Bucket-row hash table: ONE aligned row gather per query.
 
-Measured on TPU v5e (tools/row_bench.py): a random HBM gather costs
-~30-50ns per ROW regardless of row width (8B..256B). So the unit of cost
-is the row fetch, not bytes — a lookup structure should put the whole
-answer for a query in one aligned row. This replaces ops.hash_index's
+A random gather from device memory costs per ROW (memory transactions)
+far more than per byte: a small row and a 64-byte row cost about the
+same. So the unit of cost is the row fetch — a lookup structure should
+put the whole answer for a query in one aligned row. This replaces ops.hash_index's
 slot-probing table (which cost `probe` row fetches per query) for the hot
 lookups:
 
@@ -15,7 +15,7 @@ lookups:
 
 Layout: R = 2^bits rows, each row = E entries stored columnar
 [key*E | val*E | (cnt*E) | pad], padded to a power-of-two u32 width so rows
-stay HBM-aligned. bucket(key) = (key * 0x9E3779B9) >> (32-bits). Entries
+stay aligned. bucket(key) = (key * 0x9E3779B9) >> (32-bits). Entries
 land in their bucket row in input order; when a bucket overflows, entries
 spill to the NEXT row if `probe_rows`=2 (queries then fetch both rows), or
 are dropped (counted) — duplicates degrade exactly like the reference's

@@ -1,6 +1,6 @@
 """2-bit nucleotide encoding, host (numpy) and device (jnp) variants.
 
-Design notes (TPU-first):
+Design notes:
   * Bases are encoded A=0, C=1, G=2, T=3 and packed MSB-first so that the
     packed integer order equals byte-wise lexicographic order of the ACGT
     string. The reference relies on lexicographic sequence comparisons for
@@ -81,7 +81,7 @@ def pack_codes(codes: jnp.ndarray, length: int) -> jnp.ndarray:
     """Device: pack [..., length] uint8 codes MSB-first into uint32.
 
     length <= 16. Unrolled shift-or chain; XLA fuses this into a handful of
-    vector ops, no MXU needed.
+    elementwise ops, no matmul needed.
     """
     assert length <= 16
     out = jnp.zeros(codes.shape[:-1], dtype=jnp.uint32)

@@ -2,9 +2,9 @@
 
 Replaces the bucketed binary search for the aligner's seed lookup: one
 gather of a PROBE-slot contiguous window per query (keys + positions)
-instead of a 6-step sequential search loop — measured ~100x faster on TPU
-for the seed-lookup stage (contiguous 8-slot windows lower to efficient
-sliced gathers; dependent-iteration searches are HBM-latency bound).
+instead of a 6-step sequential search loop (contiguous 8-slot windows
+lower to sliced gathers; dependent-iteration searches are bound by memory
+latency). Superseded by ops.bucket_table for the hot lookups.
 
 Layout: slots = next_pow2(n / load); hash = (key * 0x9E3779B9) >> (32-bits);
 entries with equal keys (multi-occurrence kmers) and colliding buckets sit

@@ -3,7 +3,7 @@
 The reference trims each RNA read before STAR alignment and restores the
 trimmed bases as soft clips afterwards (lib/rust/cr_lib/src/aligner.rs:
 101-166 adapter defs + score thresholds, :404 restore, cr_wrap default
-min scores 20/20 at cellranger.rs:278-279).  TPU-first formulation: the
+min scores 20/20 at cellranger.rs:278-279).  Fixed-shape formulation: the
 read buffer is NEVER moved — trimming masks bases out of `nmask`, the
 aligner's seed/extension stages already skip masked bases (they behave
 like N's), and the BAM CIGAR's soft-clip arithmetic restores the full

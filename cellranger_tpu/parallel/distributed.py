@@ -2,13 +2,14 @@
 
 The reference scales out by having mrp schedule stage chunks across a
 cluster with a shared filesystem (SURVEY §2.7 P7, lib/rust/cr_wrap/src/
-mrp_args.rs:5-65).  The TPU analog: one Python process per host, joined
+mrp_args.rs:5-65).  The JAX analog: one Python process per host, joined
 into a single JAX runtime via `jax.distributed.initialize`, a global mesh
 spanning every host's devices, and
 
   * FASTQ chunks data-parallel BY HOST (each host streams only its own
     subset of the input pairs — the MAKE_SHARD chunk fan-out analog),
-  * psum/all-gather merges riding ICI within a host and DCN across hosts
+  * psum/all-gather merges over the in-host interconnect and the network
+    across hosts
     (metric joins, the pass-1 whitelist histogram),
   * molecule spill partitions written under the shared output directory
     and read back by host 0 for dedup + output writing (the shardio
@@ -29,9 +30,19 @@ import jax
 #   CRTPU_COORDINATOR    host:port of process 0
 #   CRTPU_NUM_PROCESSES  total process count
 #   CRTPU_PROCESS_ID     this process's id (0-based)
+#   CRTPU_LOCAL_DEVICES  optional comma-separated local device ids this
+#                        process opens (one process per card on a host);
+#                        unset, the process opens every local device
 ENV_COORD = "CRTPU_COORDINATOR"
 ENV_NPROC = "CRTPU_NUM_PROCESSES"
 ENV_PID = "CRTPU_PROCESS_ID"
+ENV_LOCAL = "CRTPU_LOCAL_DEVICES"
+
+
+def local_device_ids() -> list[int] | None:
+    """This process's local device ids from CRTPU_LOCAL_DEVICES, or None."""
+    v = os.environ.get(ENV_LOCAL, "").strip()
+    return [int(x) for x in v.split(",")] if v else None
 
 _initialized = False
 
@@ -48,7 +59,8 @@ def init_from_env() -> bool:
     jax.distributed.initialize(
         coordinator_address=coord,
         num_processes=int(os.environ[ENV_NPROC]),
-        process_id=int(os.environ[ENV_PID]))
+        process_id=int(os.environ[ENV_PID]),
+        local_device_ids=local_device_ids())
     _initialized = True
     return True
 

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops.bucket_table import BucketTable, MIX
+from ..ops.scan import cummax
 
 
 def _log2(n: int) -> int:
@@ -102,7 +103,7 @@ def sharded_kmer_lookup(table: BucketTable, q: jnp.ndarray, axis: str,
     loc_s = local[order]
     ar = jnp.arange(M, dtype=jnp.int32)
     new_g = jnp.concatenate([jnp.ones(1, bool), own_s[1:] != own_s[:-1]])
-    gstart = jax.lax.cummax(jnp.where(new_g, ar, 0))
+    gstart = cummax(jnp.where(new_g, ar, 0))
     rank = ar - gstart
     ok = rank < cap
     overflow = jnp.sum((~ok).astype(jnp.int32))

@@ -46,8 +46,8 @@ def make_sharded_step(step_fn, mesh: Mesh, axis: str = "data",
     uint32 input plane).  When step_fn carries `.impl`/`.bound_args`
     attributes (see count._make_step), the bound index pytrees flow
     through shard_map as REPLICATED ARGUMENTS rather than closure
-    constants — closed-over arrays get serialized into the compile
-    payload (HTTP 413 / minutes of compile on remote-compile backends).
+    constants (closed-over arrays would be embedded in the compiled
+    program, see align.aligner.DeviceIndex).
     out_specs are pytree PREFIXES (arrays -> P(axis), metrics -> P()) so
     the wrapper keeps working as the step grows new output fields."""
 

@@ -2,7 +2,7 @@
 
 The reference moves barcode-sorted records between stages through sorted
 shard files on a shared filesystem (SURVEY §2.7 P2/P3: ShardWriter/
-make_chunks). On a TPU mesh the same logical operation is an all_to_all:
+make_chunks). On a device mesh the same logical operation is an all_to_all:
 each chip routes its conf-mapped molecule rows to the chip that owns the
 barcode (bc % n_chips), then runs the standard sorted-segment dedup on its
 received set. Barcode ownership makes per-chip dedup globally correct —
@@ -23,6 +23,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops.dedup import dedup_molecules
+from ..ops.scan import cummax
 
 
 def make_sharded_dedup(mesh: Mesh, n_rows_per_chip: int, umi_len: int,
@@ -49,7 +50,7 @@ def make_sharded_dedup(mesh: Mesh, n_rows_per_chip: int, umi_len: int,
         # rank within destination group
         pos_i = jnp.arange(dst.shape[0], dtype=jnp.int32)
         new_g = jnp.concatenate([jnp.ones(1, bool), dst_s[1:] != dst_s[:-1]])
-        gstart = jax.lax.cummax(jnp.where(new_g, pos_i, 0))
+        gstart = cummax(jnp.where(new_g, pos_i, 0))
         rank = pos_i - gstart
         ok = (rank < cap) & (dst_s < n)
         overflow = jnp.sum(((rank >= cap) & (dst_s < n)).astype(jnp.int32))

@@ -26,19 +26,19 @@ DEFAULTS: dict = {
     "fiveprime_multiplexing": True,
     "threeprime_lt_multiplexing": False,
     "min_major_probe_bc_frac": 0.7,
-    # TPU-engine-specific site knobs
-    # x expected winnowing density; 0.85 = S=10 seeds at L=91/w=12.  The
-    # r4 TPU sweep (tools/step_tune.py) measured 1.5->0.85 as 78.6->52.4ms
-    # per 32k-read step with the truth probe PERFECT (off-repeat recall
-    # 1.0, zero false-confident in repeats); raise at sites that see
-    # pick-rich reads losing seeds
+    # device-engine site knobs
+    # x expected winnowing density; 0.85 = S=10 seeds at L=91/w=12, where
+    # the human-scale truth probe is perfect (off-repeat recall 1.0, zero
+    # false-confident in repeats); each extra seed is one more row gather
+    # per read.  Raise at sites that see pick-rich reads losing seeds
     "minimizer_seed_headroom": 0.85,
     "umi_min_read_length": None,    # override chemistry UMI min length
     "batch_size": None,             # override CountConfig.batch_size
     "spill_partitions": None,       # override pipeline SPILL_PARTS
     # max text length that still builds the overlapped window-row table
-    # (~0.9B/base extra HBM for one-gather candidate windows); lower it
-    # on chips without the headroom (align/aligner.OVERLAP_ROWS_MAX_TEXT)
+    # (~0.9B/base extra device memory for one-gather candidate windows);
+    # lower it on devices without the headroom
+    # (align/aligner.OVERLAP_ROWS_MAX_TEXT)
     "overlap_rows_max_text": None,
 }
 

@@ -5,7 +5,7 @@ lib/python/cellranger/logperf.py prints RSS deltas around blocks).
 `PerfTrace` times named phases and samples RSS around them; `run_count`
 wraps its phases and writes `<out_dir>/_perf.json` so every run carries
 a breakdown (pass1/pass2/dedup/matrix/cells/secondary/...). For device-
-side kernel timing use tools/profile_step.py (jax profiler traces);
+side kernel timing use jax.profiler traces;
 this module is the cheap always-on host-side layer.
 
 Usage:

@@ -5,8 +5,8 @@ pipestance restart/resume from journaled outputs; mrp --autoretry).
 The heavy lifting is already structural: every pipeline phase writes
 durable outputs and `pipeline.checkpoint` fingerprints the molecule table,
 so a rerun of run_count skips completed passes.  `run_with_retry` adds the
-mrp-style automatic retry loop for transient failures (preemptions, tunnel
-drops), preserving the checkpoint between attempts so work is never
+mrp-style automatic retry loop for transient failures (preemptions, lost
+connections), preserving the checkpoint between attempts so work is never
 repeated — attempt N+1 resumes where N stopped.
 """
 

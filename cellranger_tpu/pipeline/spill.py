@@ -3,7 +3,7 @@
 The reference streams every large intermediate through sorted spill files:
 SpillVec keeps <=N items in RAM then spills (lib/rust/cr_types/src/
 spill_vec.rs), and shardio files carry barcode-sorted records between
-stages (lib/rust/cr_lib/src/stages/barcode_sort.rs:97-113).  The TPU
+stages (lib/rust/cr_lib/src/stages/barcode_sort.rs:97-113).  This
 pipeline's equivalents live here:
 
   * MoleculeSpill — conf-mapped molecule rows (bc, gene, umi) are routed to

@@ -346,8 +346,8 @@ def build_web_summary(out_dir: str, sample_id: str = "sample",
 </div>
 {curves_html}
 {f'<div class="panel"><h2>Clustering</h2><div class="row">{analysis_html}</div></div>' if analysis_html else ''}
-<div class="footnote">Generated by cellranger-tpu 0.1.0 — a TPU-native
-single-cell engine. Metrics definitions follow the reference pipeline.</div>
+<div class="footnote">Generated by cellranger-tpu 0.1.0 — a single-cell
+engine on JAX. Metrics definitions follow the reference pipeline.</div>
 </div></body></html>"""
     out_path = os.path.join(out_dir, "web_summary.html")
     with open(out_path, "w") as f:

@@ -144,8 +144,9 @@ def check_h5(actual_path: str, expected_path: str,
              rel_tol: float = FLOAT_REL_TOL) -> list[str]:
     """Structural h5 compare (h5diff -cr analog): identical tree of groups/
     datasets/attributes with equal contents (floats within tolerance)."""
-    import h5py
+    from ..io.h5lite import open_h5
     diffs: list[str] = []
+    is_group = lambda o: hasattr(o, "keys")
 
     def walk(ga, ge, path):
         ka, ke = set(ga.keys()), set(ge.keys())
@@ -156,13 +157,13 @@ def check_h5(actual_path: str, expected_path: str,
         for k in sorted(ka & ke):
             oa, oe_ = ga[k], ge[k]
             p = f"{path}/{k}"
-            if isinstance(oe_, h5py.Group):
-                if not isinstance(oa, h5py.Group):
+            if is_group(oe_):
+                if not is_group(oa):
                     diffs.append(f"{p}: group vs dataset")
                 else:
                     walk(oa, oe_, p)
             else:
-                if isinstance(oa, h5py.Group):
+                if is_group(oa):
                     diffs.append(f"{p}: dataset vs group")
                     continue
                 va, ve = oa[()], oe_[()]
@@ -187,8 +188,7 @@ def check_h5(actual_path: str, expected_path: str,
             elif not np.array_equal(np.asarray(aa[k]), np.asarray(ae[k])):
                 diffs.append(f"{p}@{k}: attr {aa[k]!r} != {ae[k]!r}")
 
-    with h5py.File(actual_path, "r") as fa, \
-            h5py.File(expected_path, "r") as fe:
+    with open_h5(actual_path) as fa, open_h5(expected_path) as fe:
         walk(fa, fe, "")
         _attrs(fa, fe, "")
     return diffs

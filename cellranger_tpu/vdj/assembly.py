@@ -2,7 +2,7 @@
 lib/rust/vdj_asm_utils/src/process.rs:610 process_barcode +
 ref_free.rs:118 strong_paths).
 
-TPU/host split: the heavy, regular work — counting (barcode, kmer)
+Device/host split: the heavy, regular work — counting (barcode, kmer)
 multiplicities across ALL reads of the run — happens on device with the
 same sort + segmented-reduction machinery as UMI dedup; the branchy,
 data-dependent unitig walking runs on host over the (small) per-barcode

@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # env var alone is ignored here
+jax.config.update("jax_platforms", "cpu")  # CPU even where a GPU is present
 
 # the distributed runtime must come up BEFORE anything touches the XLA
 # backend (jax.distributed.initialize contract) — i.e. before the heavy

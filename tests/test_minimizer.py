@@ -1,9 +1,9 @@
 """Minimizer-sampled index + parity position packing (human-genome scale).
 
-The reference handles 3Gb genomes via STAR's suffix array on 64-bit hosts
-(reference_builder.py:404); our TPU index instead shrinks to HBM scale by
-winnowing (density ~2/(w+1)) and packs full u32 coordinates by riding the
-strand bit in the position's parity bit. These tests force both modes on
+The reference handles 3Gb genomes via STAR's suffix array on 64-bit
+hosts; our device index instead shrinks to device-memory scale by
+winnowing (density ~2/(w+1)) and packs full u32 coordinates by
+riding the strand bit in the position's parity bit. These tests force both modes on
 small genomes and require exact position recovery.
 """
 

@@ -7,6 +7,7 @@ import pytest
 
 from cellranger_tpu.io.chemistry import get_chemistry
 from cellranger_tpu.io.fastq import batches_from_fastqs
+from cellranger_tpu import native
 from cellranger_tpu.native import NativeFastqReader, get_lib
 
 
@@ -68,3 +69,15 @@ def test_native_matches_python_batches(tmp_path):
                   "rna_qual", "slot_valid", "read_id"]:
             np.testing.assert_array_equal(getattr(b1, f), getattr(b2, f),
                                           err_msg=f)
+
+
+def test_library_is_keyed_on_the_source_hash():
+    """A library built from other source (or left in a copied tree) is
+    never loaded: the file name carries a hash of fastq_reader.cpp."""
+    import hashlib
+    import os
+    src = os.path.join(os.path.dirname(native.__file__), "fastq_reader.cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    assert native.lib_path().endswith(f"libfastq_reader.{digest}.so")
+    assert get_lib() is not None and os.path.exists(native.lib_path())

@@ -69,7 +69,7 @@ def test_run_with_retry_transient_vs_permanent():
     def flaky():
         calls["n"] += 1
         if calls["n"] < 3:
-            raise RuntimeError("tunnel dropped")
+            raise RuntimeError("connection reset")
         return "ok"
 
     assert run_with_retry(flaky, retries=3, backoff_s=0.0) == "ok"

@@ -81,10 +81,8 @@ def main():
     os.makedirs(tmp, exist_ok=True)
     n_reads = int(n_million * 1e6)
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    from cellranger_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from cellranger_tpu.io.gtf import write_fasta
     from cellranger_tpu.io.reference import ReferencePackage

@@ -14,6 +14,8 @@ text is a 4-copy repeat family — multimapper pressure like the human
 genome's segmental duplications).
 
 Usage: python tools/human3g_probe.py [out_json] [--step]
+(the result is printed as one JSON line, and also written to out_json
+when one is given)
 """
 
 import json
@@ -38,7 +40,7 @@ BATCH = 8192
 
 def main():
     out_json = sys.argv[1] if len(sys.argv) > 1 and not \
-        sys.argv[1].startswith("--") else "HUMAN3G.json"
+        sys.argv[1].startswith("--") else None
     do_step = "--step" in sys.argv
 
     from cellranger_tpu.align.index import GenomeIndex
@@ -129,6 +131,8 @@ def main():
 
     if do_step:
         import jax
+        from cellranger_tpu.compile_cache import enable_compile_cache
+        enable_compile_cache()
         from cellranger_tpu.align.aligner import DeviceIndex
         from cellranger_tpu.align.annotate import AnnotationIndex
         from cellranger_tpu.io.chemistry import get_chemistry
@@ -172,8 +176,9 @@ def main():
             step_ms=round(best * 1e3, 2),
             reads_per_sec=round(BATCH / best, 1), batch=BATCH)
 
-    with open(out_json, "w") as f:
-        json.dump(result, f, indent=1)
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(result, f, indent=1)
     print(json.dumps(result))
 
 

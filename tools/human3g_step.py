@@ -1,7 +1,7 @@
-"""Step throughput at GRCh38 scale on the real chip: loads the cached
-3.1GB index (.bench_cache/human3g_idx.npz from tools/human3g_probe.py),
-uploads the ~10GB DeviceIndex, and times the fused step at batch 8192.
-Appends a "step" block to HUMAN3G.json.
+"""Step throughput at GRCh38 scale on the device: loads the cached 3.1GB
+index (.bench_cache/human3g_idx.npz from tools/human3g_probe.py), uploads
+the ~10GB DeviceIndex, and times the fused step at batch 8192. Prints one
+JSON line.
 """
 
 import json
@@ -21,9 +21,9 @@ EXONS_PER_GENE = 12
 
 def main():
     import jax
+    from cellranger_tpu.compile_cache import enable_compile_cache
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_cache"))
+    enable_compile_cache()
     from cellranger_tpu.align.index import GenomeIndex
     from cellranger_tpu.align.aligner import DeviceIndex
     from cellranger_tpu.align.annotate import AnnotationIndex
@@ -133,10 +133,7 @@ def main():
                mapped_frac=round(mapped_frac, 4))
     if res_ov is not None:
         res["overlap_rows"] = res_ov
-    path = os.path.join(repo, "HUMAN3G.json")
-    j = json.load(open(path))
-    j["step"] = res
-    json.dump(j, open(path, "w"), indent=1)
+    res["device_kind"] = jax.devices()[0].device_kind
     print(json.dumps(res))
 
 

@@ -28,7 +28,10 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 import jax
 
+from cellranger_tpu.compile_cache import enable_compile_cache
+
 jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden", "e2e")
 
